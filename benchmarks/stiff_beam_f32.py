@@ -2,8 +2,8 @@
 reference's `lib_bin/beam_sag/test_ancf3243.cc:287-291` material) — the
 round-2 acceptance experiment.
 
-Three things were required to make this work (full story in PERF_NOTES
-"Float32 convergence floor"):
+Three things were required to make this work (full story in
+docs/ARCHITECTURE.md "Float32 convergence floor"):
 
 1. Displacement-space state (`StepState.u`): evaluating at
    x_prev + dt*v in absolute coordinates rounds the Newton increment away

@@ -1,12 +1,13 @@
-"""Converged-VBD benchmark (VERDICT-r3 item 7): full convergence-driven VBD
-steps vs Newton-PCG at the bench scales, same tolerance (2.5% of the load
-norm — the bench.py protocol), measured in-scan (no dispatch overhead).
+"""Converged-VBD benchmark: full convergence-driven VBD steps at the bench
+scales, same tolerance as bench.py's Newton-PCG (2.5% of the load norm),
+measured in-scan (no dispatch overhead).
 
 The reference's VBD is a performance solver (CUDA-graph inner sweeps,
-`SyncedVBD.cu:1155-1291,1475-1641`); this measures whether the TPU
-redesign's per-sweep cost (a serial chain of ~n_colors fixed-latency color
-updates) amortizes at convergence or stays a parity-only path.
+`SyncedVBD.cu:1155-1291,1475-1641`); this measures whether this repo's
+per-sweep cost (a serial chain of ~n_colors color updates) amortizes at
+convergence or stays a parity-only path. Needs a GPU.
 
+    python benchmarks/vbd_converged.py
 TLFEA_SCALES=1k,10k; TLFEA_VBD_SWEEPS caps sweeps/outer (default 400).
 """
 
@@ -15,28 +16,25 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("TLFEA_NO_X64", "1")
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "out/jit_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
+import bench
 from tlfea.constraints import FixedCoefs
 from tlfea.elements import feat10
 from tlfea.elements.assembly import lumped_mass, node_ref
 from tlfea.materials import SVK, lame_from_E_nu
-from tlfea.ops import pallas_fem
 from tlfea.solvers import StepState, System, vbd
+from tlfea.utils.compile_cache import enable_compile_cache
 from tlfea.utils.reorder import apply_node_order, best_order
 from tlfea.utils.tetmesh import box_t10_mesh
 
-CONFIGS = {
-    "1k": (1.0, 0.25, 0.25, 12, 4, 3),
-    "10k": (2.0, 0.35, 0.3, 42, 7, 6),
-}
+bench.require_accelerator()
+enable_compile_cache()
+
+CONFIGS = bench.CONFIGS
 ROLLOUT = 5
 MAX_SWEEPS = int(os.environ.get("TLFEA_VBD_SWEEPS", 400))
 dtype = np.float32
@@ -54,11 +52,6 @@ for scale in os.environ.get("TLFEA_SCALES", "1k,10k").split(","):
         elems=elems, material=mat,
         constraints=FixedCoefs.from_indices(fixed, nodes.astype(dtype)),
     )
-    # Flat Pallas kernels accelerate grad_L inside the sweep refreshes.
-    try:
-        system = pallas_fem.with_pallas(system, banded="auto")
-    except Exception:
-        pass
     state = StepState.rest(system, nodes.astype(dtype))
     f_ext = jnp.zeros((nodes.shape[0], 3), dtype).at[:, 2].add(
         lumped_mass(elems) * dtype(-9.81))

@@ -25,7 +25,7 @@ from tlfea.utils import io_vtk
 from tlfea.utils.cli import Cli
 from tlfea.utils.tetmesh import box_t10_mesh, read_tetgen
 
-from _common import REF_DATA, accelerate, make_solver, out_dir
+from _common import REF_DATA, make_solver, out_dir
 
 
 def load_mesh(res: int):
@@ -61,7 +61,6 @@ def main():
     system = System(
         elems=elems, material=mat, constraints=FixedCoefs.from_indices(fixed, nodes)
     )
-    system = accelerate(system)  # Pallas banded path on accelerators
     state = StepState.rest(system, nodes)
     f_ext = gravity_force(system)
 

@@ -30,7 +30,7 @@ from tlfea.utils.mesh_manager import MeshManager
 from tlfea.utils.pressure import distance_pressure_field
 from tlfea.utils.tetmesh import box_t10_mesh, read_tetgen
 
-from _common import REF_DATA, accelerate, make_solver, out_dir
+from _common import REF_DATA, make_solver, out_dir
 
 
 def main():
@@ -95,13 +95,11 @@ def main():
     r_drive = r_ids[rn[:, 0] > rn[:, 0].max() - 1e-9]
     driven = np.concatenate([l_drive, r_drive])
     # DensePins: membership + targets as dense fields, so per-step
-    # retargeting (the close/hold/reopen schedule) is data-only — no retrace
-    # even on the banded Pallas fast path (FixedCoefs there must be jaxpr
-    # constants and would recompile every step; see newton._cons_closure).
+    # retargeting (the close/hold/reopen schedule) and re-pinning are
+    # data-only — no retrace.
     system = System(
         elems=elems, material=mat, constraints=DensePins.from_indices(driven, nodes)
     )
-    system = accelerate(system)
     state = StepState.rest(system, nodes)
 
     collision = HydroelasticCollision(

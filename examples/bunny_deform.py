@@ -26,7 +26,7 @@ from tlfea.utils import io_vtk
 from tlfea.utils.cli import Cli
 from tlfea.utils.tetmesh import box_t10_mesh, read_tetgen
 
-from _common import REF_DATA, accelerate, make_solver, out_dir
+from _common import REF_DATA, make_solver, out_dir
 
 
 def main():
@@ -75,7 +75,6 @@ def main():
     system = System(
         elems=elems, material=mat, constraints=FixedCoefs.from_indices(base, nodes)
     )
-    system = accelerate(system)  # Pallas banded path on accelerators
     state = StepState.rest(system, nodes)
     f_ext = jnp.zeros_like(state.x)
     f_ext = f_ext.at[ears, 0].add(args["ear_force"])  # sideways pull

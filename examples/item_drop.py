@@ -32,7 +32,7 @@ from tlfea.utils.mesh_manager import MeshManager
 from tlfea.utils.pressure import distance_pressure_field
 from tlfea.utils.tetmesh import box_t10_mesh
 
-from _common import REF_DATA, accelerate, make_solver, out_dir
+from _common import REF_DATA, make_solver, out_dir
 
 
 def main():
@@ -113,9 +113,9 @@ def main():
             mid, distance_pressure_field(mm.mesh_nodes(mid), local_conn, args["modulus"])
         )
 
-    # Finalize with band-minimizing node relabeling so the banded Pallas
-    # kernels engage (the dragon's natural TetGen order has bandwidth ~26k
-    # and falls back to the flat path — VERDICT r2 #1).
+    # Finalize with band-minimizing node relabeling (the dragon's natural
+    # TetGen order has bandwidth ~26k), which keeps each element's gathers
+    # and scatters local in memory.
     scene = mm.scene(reorder=True)
     nodes, conn = scene.nodes, scene.conn
     print(f"scene: {conn.shape[0]} elems, {nodes.shape[0]} nodes")
@@ -129,10 +129,6 @@ def main():
     system = System(
         elems=elems, material=mat, constraints=FixedCoefs.from_indices(fixed, nodes)
     )
-    system = accelerate(system)  # Pallas banded path on accelerators
-    if system.pallas is not None:
-        banded = getattr(system.pallas, "banded", None) is not None
-        print(f"pallas path engaged (banded={banded})")
     state = StepState.rest(system, nodes)
 
     if args["collision"] == "hydro":

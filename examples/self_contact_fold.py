@@ -32,7 +32,7 @@ from tlfea.utils.cli import Cli
 from tlfea.utils.pressure import distance_pressure_field
 from tlfea.utils.tetmesh import hairpin_t10_mesh
 
-from _common import accelerate, make_solver, out_dir
+from _common import make_solver, out_dir
 
 
 def main():
@@ -60,7 +60,6 @@ def main():
         elems=feat10.build(nodes, conn, rho=1000.0), material=mat,
         constraints=FixedCoefs.from_indices(pinned, nodes),
     )
-    system = accelerate(system)  # Pallas banded path on accelerators
     print(f"{conn.shape[0]} elems, {nodes.shape[0]} nodes; "
           f"{len(low_end)} clamped, {len(up_end)} prescribed")
 

@@ -28,7 +28,7 @@ from tlfea.utils.mesh_manager import MeshManager
 from tlfea.utils.pressure import distance_pressure_field
 from tlfea.utils.tetmesh import box_t10_mesh
 
-from _common import REF_DATA, accelerate, make_solver, out_dir
+from _common import REF_DATA, make_solver, out_dir
 
 
 def main():
@@ -78,7 +78,7 @@ def main():
             conn_local = mm.elements[inst.elem_offset : inst.elem_offset + inst.n_elems] - inst.node_offset
             mm.set_scalar_field(mid, distance_pressure_field(inst_nodes, conn_local, args["modulus"]))
 
-    # Band-minimizing node relabeling so the banded Pallas kernels engage.
+    # Band-minimizing node relabeling: local gathers and scatters.
     scene = mm.scene(reorder=True)
     nodes, conn = scene.nodes, scene.conn
     print(f"scene: {conn.shape[0]} elems, {nodes.shape[0]} nodes")
@@ -92,7 +92,6 @@ def main():
     system = System(
         elems=elems, material=mat, constraints=FixedCoefs.from_indices(fixed, nodes)
     )
-    system = accelerate(system)  # Pallas banded path on accelerators
     state = StepState.rest(system, nodes)
 
     collision = HydroelasticCollision(

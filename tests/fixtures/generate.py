@@ -3,7 +3,7 @@
 The reference's correctness strategy pins trajectories against FEniCS CSVs
 (`test-scripts/validation/fenics/beam_dynamic_backward_euler.py`); dolfinx
 is unavailable here, so these float64-CPU trajectories are the committed
-ground truth that pins all future perf work (f32 kernels, Pallas, sharding
+ground truth that pins all future perf work (f32 paths, kernels, sharding
 changes) to a stored trajectory, not just analytic end states.
 
 Run:  PYTHONPATH=. python tests/fixtures/generate.py

@@ -77,8 +77,8 @@ def test_range_mode_matches_grid_mode():
     """ranges=True (contiguous index aggregates; reshape-sum restrict) must
     be a valid coarse correction: same converged Newton step as the dense
     spatial-grid Agg path, and a comparable CG cut. Requires a
-    bandwidth-reducing node order (RCM — the production configuration, and
-    what the banded kernels already need) so contiguous ranges are
+    bandwidth-reducing node order (RCM — the production configuration) so
+    contiguous ranges are
     spatially coherent; the raw box_t10_mesh order appends all mid-edge
     nodes after all corners, which scatters every range across the beam."""
     from tlfea.elements.assembly import lumped_mass
@@ -110,8 +110,7 @@ def test_range_mode_matches_grid_mode():
     assert cp_rng.Agg is None and cp_rng.seg > 0
     # Same coarse space by construction: range mode factors the SAME
     # node-level spatial aggregation through per-slot masked reshape-sums
-    # (hard whole-range assignment was measured ~1.6x worse at 100k:
-    # PERF_NOTES).
+    # (hard whole-range assignment was measured ~1.6x worse at 100k).
     assert cp_rng.n_agg == cp_grid.n_agg
 
     # restrict/prolong adjointness: <R r, w> == <r, R^T w>.

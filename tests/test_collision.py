@@ -118,7 +118,7 @@ def test_friction_opposes_sliding(overlapping):
 
 
 def test_block_broadphase_matches_dense(overlapping):
-    """Two-level block broadphase (VERDICT r2 #2) finds the same candidate
+    """Two-level block broadphase finds the same candidate
     set and produces the same patch forces as the exact dense cross test."""
     from tlfea.collision.broadphase import (
         find_pairs_block, find_pairs_dense, setup_block_cross,

@@ -3,7 +3,6 @@ trace-free retargeting — reference `SetNodalFixed`/`UpdateNodalFixed`,
 `FEAT10Data.cu:728-832`)."""
 
 import numpy as np
-import pytest
 import jax
 import jax.numpy as jnp
 
@@ -60,39 +59,11 @@ def test_matches_fixed_coefs_step():
     assert float(jnp.abs(s_dp.lam[unpinned]).max()) == 0.0
 
 
-@pytest.mark.heavy
-def test_pallas_g_and_hvp_dense_pins():
-    """Flat-Pallas g_and_hvp with DensePins == jax.linearize(grad_L)."""
-    from tlfea.ops import pallas_fem
-    from tlfea.solvers.common import grad_L
-
-    nodes, system, fixed = _setup(DensePins)
-    psys = pallas_fem.with_pallas(system, dtype=DTYPE, interpret=True)
-    rng = np.random.default_rng(3)
-    n = nodes.shape[0]
-    x_prev = jnp.asarray(nodes)
-    v = jnp.asarray(rng.normal(size=(n, 3)) * 0.1, DTYPE)
-    v_prev = jnp.asarray(rng.normal(size=(n, 3)) * 0.1, DTYPE)
-    p = jnp.asarray(rng.normal(size=(n, 3)), DTYPE)
-    lam = jnp.asarray(rng.normal(size=(n, 3)), DTYPE) * psys.constraints.mask
-    f_ext = _grav(nodes)
-    dt, rho = DTYPE(1e-3), DTYPE(1e6)
-    g_ref, hvp_ref = jax.linearize(
-        lambda vv: grad_L(vv, x_prev, v_prev, lam, f_ext, dt, rho, psys), v
-    )
-    g_got, hvp_got = pallas_fem.g_and_hvp(
-        v, x_prev, v_prev, lam, f_ext, dt, rho, psys
-    )
-    assert float(jnp.abs(g_got - g_ref).max()) / float(jnp.abs(g_ref).max()) < 1e-12
-    h_ref, h_got = hvp_ref(p), hvp_got(p)
-    assert float(jnp.abs(h_got - h_ref).max()) / float(jnp.abs(h_ref).max()) < 1e-12
-
-
 def test_membership_and_target_updates_do_not_retrace():
     """Flipping WHICH nodes are pinned (with_mask/pinning) and WHERE
     (with_targets) reuses one compiled executable — fixed shapes, data-only
-    changes. This is the property FixedCoefs cannot provide (idx resize /
-    banded-path constant pinning)."""
+    changes. This is the property FixedCoefs cannot provide (resizing idx
+    changes shapes)."""
     nodes, system, fixed = _setup(DensePins)
     f_ext = _grav(nodes)
     state = StepState.rest(system, nodes)

@@ -3,8 +3,8 @@ acceptance tests for the displacement-space state, stiffness-scaled ALM
 penalty, and mixed-precision accuracy mode.
 
 The reference's stiff beam-sag config (`lib_bin/beam_sag/test_ancf3243.cc:
-287-291`) uses E=7e8. Three independent fixes were needed (see PERF_NOTES
-"Float32 convergence floor" for the full investigation):
+287-291`) uses E=7e8. Three independent fixes were needed (see
+docs/ARCHITECTURE.md "Float32 convergence floor" for the investigation):
 - u-space state: x_prev + dt*v rounds the Newton increment away in f32;
 - rho ~ dt*E*h/dt^2 (1e11 here): a weak penalty leaves constraint
   enforcement to the dual integral action, which destabilizes the

@@ -1,8 +1,8 @@
 """Driver-contract tests for __graft_entry__.
 
 The driver invokes `dryrun_multichip(n)` in a FRESH process with no CPU env
-vars set (round-1 failure mode: it assumed devices already existed,
-MULTICHIP_r01.json rc=1). The subprocess test reproduces that exact flow.
+vars set (an early version assumed the devices already existed and
+failed). The subprocess test reproduces that exact flow.
 """
 
 import os
@@ -39,6 +39,6 @@ def test_entry_traces():
 
     fn, args = g.entry()
     out = jax.eval_shape(fn, *args)
-    state = args[1]  # (system, state, f_ext, bdata)
+    state = args[1]  # (system, state, f_ext)
     assert out.x.shape == state.x.shape
     assert state.x.shape[0] >= 10_000  # driver asked for a non-toy problem

@@ -4,11 +4,8 @@ Physics must be invariant under renumbering: the ALM gradient of the
 renumbered system equals the permutation of the original gradient.
 """
 
-import os
-
 import numpy as np
 import jax.numpy as jnp
-import pytest
 
 from tlfea.constraints import FixedCoefs
 from tlfea.elements import feat10
@@ -85,7 +82,7 @@ def _two_box_scene():
 
 def test_scene_reorder_consistency():
     """`MeshManager.scene()` threads ONE node permutation through every
-    node-indexed array (VERDICT r2 #1: scene-level renumbering)."""
+    node-indexed array (scene-level renumbering)."""
     mm = _two_box_scene()
     base = mm.scene(reorder=False)
     sc = mm.scene(reorder=True)
@@ -112,39 +109,3 @@ def test_scene_reorder_consistency():
     # to_old round-trips per-node data.
     assert np.allclose(sc.to_old(sc.nodes), mm.nodes)
 
-
-DRAGON = "/root/reference/data/meshes/T10/item_drop/dragon.node"
-
-
-@pytest.mark.slow
-@pytest.mark.skipif(not os.path.exists(DRAGON), reason="reference data absent")
-def test_dragon_scene_builds_banded():
-    """The flagship item-drop asset runs the banded Pallas path after
-    scene-level renumbering (VERDICT r2 next-round #1). Natural TetGen
-    order has bandwidth ~26k and falls back; `mm.scene()` restores
-    eligibility."""
-    from tlfea.materials import SVK as _SVK
-    from tlfea.ops.pallas_banded import NotBandedError, build_banded
-    from tlfea.utils.mesh_manager import MeshManager
-
-    mm = MeshManager()
-    item = mm.load_mesh(DRAGON, DRAGON.replace(".node", ".ele"), "dragon")
-    inodes = mm.mesh_nodes(item)
-    ext = inodes.max(axis=0) - inodes.min(axis=0)
-    fn, fc = box_t10_mesh(2.5 * ext[0], 2.5 * ext[1], 0.2 * ext[2], 6, 6, 1)
-    mm.add_mesh(fn, fc, "floor")
-
-    lam, mu = lame_from_E_nu(1e6, 0.3)
-    mat = _SVK(lam=lam, mu=mu, eta_damp=1e2, lam_damp=1e2)
-
-    # Natural order: infeasible (VMEM guard) — the round-2 failure mode.
-    raw = mm.scene(reorder=False)
-    elems_raw = feat10.build(raw.nodes, raw.conn, rho=1000.0)
-    with pytest.raises(NotBandedError):
-        build_banded(elems_raw, mat)
-
-    # Scene order: banded kernels build.
-    sc = mm.scene(reorder=True)
-    elems = feat10.build(sc.nodes, sc.conn, rho=1000.0)
-    handle = build_banded(elems, mat)
-    assert handle is not None

@@ -1,59 +1,19 @@
-"""Analytic roofline cost model (`tlfea.utils.roofline`) sanity checks."""
+"""Published peaks (`tlfea.utils.roofline`): a table keyed by device_kind."""
 
-import numpy as np
-import jax.numpy as jnp
+import pytest
 
-from tlfea.constraints import FixedCoefs
-from tlfea.elements import feat10
-from tlfea.materials import SVK, MooneyRivlin, lame_from_E_nu
-from tlfea.ops import pallas_banded
-from tlfea.solvers import System
-from tlfea.utils.roofline import banded_kernel_cost, step_cost
-from tlfea.utils.tetmesh import box_t10_mesh
-
-DTYPE = np.float64
+from tlfea.utils.roofline import CHIP_PEAKS, chip_peaks
 
 
-def _banded(mat):
-    nodes, conn = box_t10_mesh(1.0, 0.3, 0.3, 8, 2, 2)
-    elems = feat10.build(nodes, conn, rho=1000.0, dtype=DTYPE)
-    fixed = np.nonzero(nodes[:, 0] < 1e-12)[0]
-    system = System(
-        elems=elems, material=mat,
-        constraints=FixedCoefs.from_indices(fixed, nodes.astype(DTYPE)),
-    )
-    bnd = pallas_banded.build_banded(elems, mat, dtype=DTYPE)
-    return system, bnd
+def test_h100_peaks_from_data_sheet():
+    pk = chip_peaks("NVIDIA H100 80GB HBM3")
+    assert pk.hbm_bytes_per_s == 3.35e12
+    assert pk.bf16_flops == 989e12
+    assert pk.fp32_flops == 67e12
+    assert "data sheet" in pk.source
+    assert set(CHIP_PEAKS) == {"NVIDIA H100 80GB HBM3"}
 
 
-def test_costs_positive_and_scale():
-    lam, mu = lame_from_E_nu(1e7, 0.3)
-    mat = SVK(lam=jnp.asarray(lam, DTYPE), mu=jnp.asarray(mu, DTYPE),
-              eta_damp=jnp.asarray(1e3, DTYPE), lam_damp=jnp.asarray(1e3, DTYPE))
-    system, bnd = _banded(mat)
-    kc = banded_kernel_cost(bnd, mat)
-    assert all(v > 0 for v in kc.values())
-    # Damped prep cache (27 rows/QP) must cost more bytes than undamped (18).
-    mat0 = SVK(lam=mat.lam, mu=mat.mu, eta_damp=jnp.asarray(0.0, DTYPE),
-               lam_damp=jnp.asarray(0.0, DTYPE))
-    bnd0 = pallas_banded.build_banded(system.elems, mat0, dtype=DTYPE)
-    kc0 = banded_kernel_cost(bnd0, mat0)
-    assert kc["hv_bytes"] > kc0["hv_bytes"]
-
-    class _Pal:
-        banded = bnd
-
-    psys = system.replace(pallas=_Pal())
-    c1 = step_cost(psys, 3, 10)
-    c2 = step_cost(psys, 3, 40)
-    assert c2["bytes"] > c1["bytes"] and c2["flops"] > c1["flops"]
-    # No banded handle -> None (flat path unmodeled).
-    assert step_cost(system, 3, 10) is None
-
-
-def test_mr_cost_model_supported():
-    mat = MooneyRivlin(mu10=jnp.asarray(2e5, DTYPE), mu01=jnp.asarray(5e4, DTYPE),
-                       kappa=jnp.asarray(1e6, DTYPE))
-    _, bnd = _banded(mat)
-    kc = banded_kernel_cost(bnd, mat)
-    assert kc["hv_flops"] > 0 and kc["hv_bytes"] > 0
+def test_unknown_device_kind_is_an_error():
+    with pytest.raises(KeyError, match="no published peaks"):
+        chip_peaks("cpu")

@@ -81,7 +81,7 @@ def test_padded_elements_contribute_nothing(problem):
 
 
 def test_sharded_rollout_matches_single_device(problem):
-    """Multi-STEP evidence (VERDICT-r2 item 5): a 10-step `make_rollout`
+    """Multi-STEP evidence: a 10-step `make_rollout`
     lax.scan over the sharded system reproduces the single-device
     trajectory — collectives inside a scan carry no cross-step drift."""
     system, state, params, f_ext = problem
@@ -104,113 +104,6 @@ def test_sharded_rollout_matches_single_device(problem):
         np.asarray(sh_state.v), np.asarray(ref_state.v), rtol=1e-9, atol=1e-11
     )
     np.testing.assert_array_equal(np.asarray(sh_nit), np.asarray(ref_nit))
-
-
-def _banded_problem(dtype=np.float64):
-    nodes, conn = box_t10_mesh(1.0, 0.3, 0.3, 8, 2, 2)
-    lam, mu = lame_from_E_nu(1e7, 0.3)
-    mat = SVK(
-        lam=jnp.asarray(lam, dtype), mu=jnp.asarray(mu, dtype),
-        eta_damp=jnp.asarray(1e3, dtype), lam_damp=jnp.asarray(1e3, dtype),
-    )
-    fixed = np.nonzero(nodes[:, 0] < 1e-12)[0]
-    elems = feat10.build(nodes, conn, rho=1000.0, dtype=dtype)
-    system = System(
-        elems=elems, material=mat,
-        constraints=FixedCoefs.from_indices(fixed, nodes.astype(dtype)),
-    )
-    return nodes, system, fixed
-
-
-def test_shard_banded_slab_construction():
-    """Host-side invariants of the sharded banded tables (fast, no kernel):
-    slab-local first flags, inert block padding, per-device visited masks,
-    and prefetch-table slicing consistency with the single-device schedule."""
-    from tlfea.ops import pallas_fem
-    from tlfea.parallel.shard_banded import shard_banded_handle
-
-    _, system, _ = _banded_problem()
-    system = pallas_fem.with_pallas(
-        system, dtype=np.float64, interpret=True, banded=True
-    )
-    bnd = system.pallas.banded
-    mesh = make_elem_mesh(jax.devices()[:8])
-    sb = shard_banded_handle(bnd, mesh)
-    D, bpd, nbp = 8, sb.blocks_per_device, sb.n_blocks_padded
-    assert nbp == bpd * D and nbp >= bnd.n_blocks
-
-    wb = np.asarray(sb.data["wb"])
-    first = np.asarray(sb.data["first"])
-    vis = np.asarray(sb.data["visited"])
-    assert wb.shape == (nbp,) and first.shape == (nbp,)
-    # Real prefix matches the single-device schedule; padding repeats wb[-1].
-    assert (wb[:bnd.n_blocks] == np.asarray(bnd.sched["wb"])).all()
-    assert (wb[bnd.n_blocks:] == wb[bnd.n_blocks - 1]).all()
-    # Every slab's first block zero-inits; within a slab, first tracks wb.
-    for d in range(D):
-        s = slice(d * bpd, (d + 1) * bpd)
-        assert first[s][0] == 1
-        assert (first[s][1:] == (wb[s][1:] != wb[s][:-1])).all()
-        assert vis[d, np.unique(wb[s]), 0, 0].all()
-    # Padding blocks are inert: empty scatter ranges, -1 inverse tiles.
-    rng = np.asarray(sb.data["ranges"]).reshape(nbp, bnd.RT, 2)
-    assert (rng[bnd.n_blocks:, :, 1] == 0).all()
-    inv = np.asarray(sb.data["inv"])
-    assert (inv[bnd.n_blocks:] == -1).all()
-    # Static element tables padded with zeros (zero contributions).
-    assert float(np.abs(np.asarray(sb.data["dV"])[bnd.n_blocks:]).max()) == 0.0
-
-
-@pytest.mark.slow
-def test_sharded_banded_matches_xla():
-    """PRODUCTION-path multi-chip parity (VERDICT-r3 item 1): the banded
-    fused Pallas kernels under shard_map over an 8-device element-block mesh
-    reproduce the XLA-path jax.linearize(grad_L) gradient and Hessian-vector
-    products in f64 (interpret mode). The single-device banded parity is
-    pinned separately (tests/test_pallas_banded.py); sharded-vs-single
-    banded was measured bit-exact."""
-    from tlfea.elements.assembly import lumped_mass
-    from tlfea.ops import pallas_banded, pallas_fem
-    from tlfea.parallel.shard_banded import shard_flagship
-    from tlfea.solvers.common import grad_L
-
-    DTYPE = np.float64
-    nodes, system, fixed = _banded_problem()
-    f_ext = jnp.zeros((nodes.shape[0], 3), DTYPE).at[:, 2].add(
-        lumped_mass(system.elems) * DTYPE(-9.81)
-    )
-    rng = np.random.default_rng(7)
-    n = nodes.shape[0]
-    v = jnp.asarray(rng.normal(size=(n, 3)) * 0.1, DTYPE)
-    v_prev = jnp.asarray(rng.normal(size=(n, 3)) * 0.1, DTYPE)
-    lam_dual = jnp.asarray(rng.normal(size=(len(fixed), 3)), DTYPE)
-    p = jnp.asarray(rng.normal(size=(n, 3)), DTYPE)
-    x_prev = jnp.asarray(nodes, DTYPE)
-    u_prev = jnp.zeros((n, 3), DTYPE)
-    dt, rho = DTYPE(1e-3), DTYPE(1e6)
-
-    g_ref, hvp_ref = jax.linearize(
-        lambda vv: grad_L(vv, x_prev, v_prev, lam_dual, f_ext, dt, rho,
-                          system, u_prev=u_prev),
-        v,
-    )
-    h_ref = hvp_ref(p)
-
-    psys = pallas_fem.with_pallas(
-        system, dtype=DTYPE, interpret=True, banded=True
-    )
-    mesh = make_elem_mesh(jax.devices()[:8])
-    ssys = shard_flagship(psys, mesh)
-    g_sh, hvp_sh = pallas_banded.g_and_hvp_banded(
-        v, x_prev, v_prev, lam_dual, f_ext, dt, rho, ssys, u_prev=u_prev
-    )
-    h_sh = hvp_sh(p)
-
-    def rel(a, b):
-        return float(jnp.max(jnp.abs(a - b)) / (jnp.max(jnp.abs(b)) + 1e-30))
-
-    assert rel(g_sh, g_ref) < 1e-11
-    assert rel(h_sh, h_ref) < 1e-11
 
 
 def test_sharded_collision_coupled_steps():

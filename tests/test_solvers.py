@@ -144,71 +144,3 @@ def test_energy_dissipation_with_damping(beam):
     # Kinetic energy should settle (strong damping): final < peak.
     assert ke[-1] < max(ke) + 1e-12
     assert np.isfinite(ke).all()
-
-
-def test_unconstrained_banded_step_traces():
-    """Regression (advisor r4 #1): a banded system with constraints=None
-    crashed at trace time with UnboundLocalError ('cons') in the resident
-    gate. Trace-only via eval_shape — the bug was Python-level, no kernel
-    execution needed."""
-    import jax
-
-    from tlfea.ops import pallas_fem
-
-    nodes, conn = box_t10_mesh(0.4, 0.2, 0.2, 2, 1, 1)
-    lam, mu = lame_from_E_nu(1e6, 0.3)
-    mat = SVK(lam=jnp.asarray(lam, np.float32), mu=jnp.asarray(mu, np.float32))
-    elems = feat10.build(nodes, conn, rho=1000.0, dtype=np.float32)
-    system = System(elems=elems, material=mat, constraints=None)
-    system = pallas_fem.with_pallas(system, interpret=True, banded=True)
-    state = StepState.rest(system, nodes.astype(np.float32))
-    state = state.replace(u=jnp.zeros_like(state.v), dv=jnp.zeros_like(state.v))
-    params = newton.NewtonParams(dt=np.float32(1e-3), inner_atol=np.float32(1e-6))
-    f_ext = gravity_force(system, nodes).astype(jnp.float32)
-    bdata = newton._banded_data(system)
-    out = jax.eval_shape(
-        lambda sys_, st, f, bd: newton._step(sys_, st, params, f, bdata=bd),
-        system, state, f_ext, bdata,
-    )
-    assert out[0].x.shape == state.x.shape
-
-
-def test_max_dv_disables_resident_path(monkeypatch):
-    """Regression (advisor r4 #2): params.max_dv > 0 has no in-kernel
-    counterpart, so the resident single-kernel path must not engage."""
-    import jax
-
-    from tlfea.ops import pallas_fem, pallas_resident
-
-    nodes, conn = box_t10_mesh(0.4, 0.2, 0.2, 2, 1, 1)
-    lam, mu = lame_from_E_nu(1e6, 0.3)
-    mat = SVK(lam=jnp.asarray(lam, np.float32), mu=jnp.asarray(mu, np.float32))
-    elems = feat10.build(nodes, conn, rho=1000.0, dtype=np.float32)
-    fixed = np.nonzero(nodes[:, 0] < 1e-12)[0]
-    system = System(
-        elems=elems, material=mat,
-        constraints=FixedCoefs.from_indices(fixed, nodes.astype(np.float32)),
-    )
-    system = pallas_fem.with_pallas(system, interpret=True, banded=True)
-    state = StepState.rest(system, nodes.astype(np.float32))
-    state = state.replace(u=jnp.zeros_like(state.v), dv=jnp.zeros_like(state.v))
-    f_ext = gravity_force(system, nodes).astype(jnp.float32)
-    bdata = newton._banded_data(system)
-
-    calls = []
-    orig = pallas_resident.newton_inner_resident
-    monkeypatch.setattr(pallas_resident, "newton_inner_resident",
-                        lambda *a, **k: calls.append(1) or orig(*a, **k))
-
-    def trace(params):
-        calls.clear()
-        jax.eval_shape(
-            lambda sys_, st, f, bd: newton._step(sys_, st, params, f, bdata=bd),
-            system, state, f_ext, bdata,
-        )
-        return bool(calls)
-
-    assert trace(newton.NewtonParams(dt=np.float32(1e-3))) is True, (
-        "sanity: resident path should engage at max_dv=0 on this mesh"
-    )
-    assert trace(newton.NewtonParams(dt=np.float32(1e-3), max_dv=5.0)) is False

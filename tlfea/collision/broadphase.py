@@ -5,7 +5,7 @@ kernel -> CUB radix sort on min-x -> two-pass count/scan/emit pair
 generation with early exit when the next box starts past the current box's
 max-x, plus topological-neighbor and same-mesh filters.
 
-TPU redesign (SURVEY P9 + hard part #2): `jnp.argsort` on min-x, then a
+Static-shape redesign (SURVEY P9 + hard part #2): `jnp.argsort` on min-x, then a
 fixed-width candidate window of K successors per sorted element with masked
 AABB overlap tests — shapes stay static regardless of contact count. The
 window bound K plays the role of the reference's dynamically-counted pair
@@ -17,7 +17,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from tlfea import struct
 
 __all__ = [
     "BroadphaseSetup",
@@ -164,7 +165,7 @@ def setup_dense_cross(conn: np.ndarray, mesh_ids: np.ndarray) -> jnp.ndarray | N
     requirement 8.9k on the dragon+floor scene). For inter-mesh collision
     (self-collision off) the exact alternative is a dense cross-mesh AABB
     test: P = sum over mesh pairs of E_a * E_b candidates, each tested with
-    two gathers and 6 compares — bandwidth-trivial on TPU and exact. Returns
+    two gathers and 6 compares — bandwidth-trivial and exact. Returns
     None when there are no cross pairs.
     """
     mesh_ids = np.asarray(mesh_ids)
@@ -188,7 +189,7 @@ class BlockCross:
 
     The dense cross test is exact but O(E_a*E_b) — 3.1M candidate pairs on
     the dragon+floor scene, where the gather traffic and the compaction
-    dominate the whole collision step. This is the TPU-static equivalent of
+    dominate the whole collision step. This is the static-shape equivalent of
     the reference's count->scan->emit SAP (`HydroelasticBroadphase.cu:
     568-660`): elements are spatially sorted (Morton order on rest
     centroids) and grouped into fixed blocks of B; block AABBs are tested
@@ -343,8 +344,8 @@ def compact_pairs(pairs: jnp.ndarray, valid: jnp.ndarray, capacity: int):
 
     Implementation is cumsum + bounded scatter, NOT argsort: at the dense
     cross-pair counts of the item-drop scene (3.1M candidates) a full sort
-    dominated the broadphase (sorting is the TPU's weakest primitive); the
-    scan+scatter emit is also what the reference does on GPU.
+    dominated the broadphase; the scan+scatter emit is also what the
+    reference does on GPU.
     """
     n_valid = jnp.sum(valid)
     slot = jnp.where(valid, jnp.cumsum(valid) - 1, capacity)

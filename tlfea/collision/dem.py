@@ -1,10 +1,10 @@
-"""Native TPU DEM contact backends (sphere contacts, DEM-Engine style).
+"""Native on-device DEM contact backends (sphere contacts, DEM-Engine style).
 
 The reference co-simulates with projectchrono's DEM-Engine
 (`lib_src/collision/DemeMeshCollisionSystem.cu:334-620`): meshes are
 registered with the external CUDA DEM solver, `DoDynamics(dt)` advances it,
 and returned contact forces are spread onto mesh nodes. DEM-Engine cannot
-run here, and a host co-sim loop would be the wrong design on TPU anyway —
+run here, and a host co-sim loop would add a host round trip per step —
 so this module implements the same *capability* natively, fully on device:
 
 - `NodeSphereDem` — mesh-vs-mesh contact via per-surface-node spheres
@@ -33,7 +33,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from tlfea import struct
 
 __all__ = ["DemParams", "dem_params_from_material", "NodeSphereDem",
            "SphereCloud", "GranularDem", "node_sphere_radii"]
@@ -128,7 +129,7 @@ class NodeSphereDem:
     one per mesh instance (e.g. from MeshManager.surface_triangles).
     Contact is evaluated between every pair of distinct meshes as a dense
     cross product of their surface nodes (masked, static shapes — the
-    TPU-native answer to DEM broadphase at these scales).
+    static-shape answer to DEM broadphase at these scales).
 
     Like all sphere-decomposition contact, forces engage at "skin" distance
     (the sphere radii, ~half the local surface edge length): choose kn stiff

@@ -70,8 +70,8 @@ class DemMeshCollision:
         if backend is None:
             raise RuntimeError(
                 "DemMeshCollision is the bridge for an EXTERNAL host-side "
-                "DEM engine (the reference uses projectchrono/DEM-Engine, a "
-                "CUDA project unavailable on TPU hosts). Provide backend= "
+                "DEM engine (the reference uses projectchrono/DEM-Engine, "
+                "which is not installed here). Provide backend= "
                 "with do_dynamics(meshes, x) -> (points, forces, mesh_ids), "
                 "or use the native on-device backend: "
                 "tlfea.collision.dem.NodeSphereDem."

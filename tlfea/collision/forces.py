@@ -8,7 +8,7 @@ receives +F (Newton's third law holds exactly).
 
 Reference: `computeExternalForcesKernel`
 (`lib_src/collision/HydroelasticNarrowphaseFunc.cuh:701-854`); the atomicAdd
-scatter becomes a deterministic segment scatter-add.
+scatter becomes an XLA scatter-add.
 """
 
 from __future__ import annotations

@@ -2,9 +2,9 @@
 alternative to sweep-and-prune.
 
 The reference's broadphase is a single-axis sweep (`HydroelasticBroadphase.cu:
-387-420`); its TPU port uses a fixed candidate window which degenerates when
-many boxes share the sweep axis (measured 8.9k window on mixed scenes,
-PERF_NOTES). For SELF-collision — where elements of one mesh are comparable
+387-420`); this repo's static-shape version uses a fixed candidate window,
+which degenerates when many boxes share the sweep axis (measured 8.9k
+window on mixed scenes). For SELF-collision — where elements of one mesh are comparable
 in size — a uniform grid is the right structure: each element lands in the
 cell of its AABB center, and candidate pairs come from the 27-cell
 neighborhood, all with static shapes:
@@ -23,8 +23,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
+from tlfea import struct
 from tlfea.collision.broadphase import BroadphaseSetup, _is_neighbor
 
 __all__ = ["GridSetup", "setup_grid", "find_pairs_grid"]

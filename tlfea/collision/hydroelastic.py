@@ -13,8 +13,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
+from tlfea import struct
 from tlfea.collision.broadphase import (
     BroadphaseSetup,
     compact_pairs,
@@ -128,10 +128,11 @@ class HydroelasticCollision:
         grid = self.grid
         blk = self.blk
 
-        # Phases are compiled SEPARATELY: measured on TPU, one fused jit of
-        # the whole pipeline ran 2.6x slower than the four phase programs
-        # (XLA scheduling pathology with the large masked intermediates);
-        # per-call dispatch is ~26 us and irrelevant (PERF_NOTES.md).
+        # Phases are compiled SEPARATELY: one fused jit of the whole
+        # pipeline once measured 2.6x slower than the phase programs (XLA
+        # scheduling with the large masked intermediates). Not yet measured
+        # on the GPU (ROADMAP S4/D7); the fused coupled rollout
+        # (`newton.make_coupled_rollout`) fuses them anyway.
         @jax.jit
         def _broad(x):
             if cross_pairs is not None:

@@ -7,7 +7,7 @@ area/centroid, orient the normal by the Drake g_A > 0, g_B > 0 convention
 with flip fallback, and evaluate the equilibrium pressure at the centroid.
 (Reference: `lib_src/collision/HydroelasticNarrowphaseFunc.cuh:73-638`.)
 
-TPU design: every polygon lives in a fixed (MAX_VERTS, 3) buffer with a
+Static-shape design: every polygon lives in a fixed (MAX_VERTS, 3) buffer with a
 vertex count — plane-tet intersection yields <= 8 points after dedup, and
 each halfspace clip is capped at 8 vertices exactly as the reference's
 `ClipPolygon` is (`HydroelasticNarrowphase.cuh:22`). All branching is masked
@@ -19,8 +19,8 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
+from tlfea import struct
 from tlfea.ops.linalg import solve3x3, det3x3
 
 __all__ = ["ContactPatches", "compute_patches", "MAX_VERTS", "NP_EPS"]

@@ -22,7 +22,8 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from tlfea import struct
 
 __all__ = ["FixedCoefs", "DensePins", "LinearConstraints", "no_constraints"]
 
@@ -77,17 +78,13 @@ class DensePins:
     {0, 1} selects pinned coefficients, target (n, 3) their prescribed
     positions (ignored where mask = 0).
 
-    The TPU-native answer to the reference's runtime pin management
+    The static-shape answer to the reference's runtime pin management
     (`SetNodalFixed` / `UpdateNodalFixed`, `FEAT10Data.cu:728-832`):
     because BOTH membership and targets are data (fixed shapes, no index
     arrays), changing WHICH coefficients are pinned (`with_mask` /
-    `pinning`) or WHERE they are pinned (`with_targets`) never retraces —
-    including on the banded Pallas fast path, where compact `FixedCoefs`
-    index arrays must be jaxpr constants (`newton._cons_closure` TPU
-    miscompile workaround) and therefore recompile per constraints object.
+    `pinning`) or WHERE they are pinned (`with_targets`) never retraces.
     All constraint algebra is elementwise (J = diag(mask)): no gather or
-    scatter anywhere, which is also why it is immune to the traced-indices
-    miscompile by construction.
+    scatter anywhere.
 
     Duals are dense too: StepState.lam has shape (n, 3), zero (and staying
     zero — c is masked) at unpinned coefficients. Memory cost is one extra

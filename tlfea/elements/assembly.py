@@ -12,7 +12,7 @@ so a single set of jitted, vmapped kernels — deformation gradient, stress,
 internal force, mass matvec — serves all families. This replaces the
 reference's per-family CUDA kernel triplicate (`lib_src/elements/
 {FEAT10,ANCF3243,ANCF3443}Data*.cu*`) with one batched compute path that XLA
-fuses and tiles for the VPU/MXU.
+fuses for the device.
 
 "Coefficients" generalize nodes: for FEAT10 a coefficient is a node (S = 10);
 for ANCF each node carries 4 vector coefficients (position + 3 gradients), so
@@ -20,7 +20,7 @@ S = 8 (3243) or 16 (3443), matching the reference's `n_coef` convention
 (`lib_src/elements/ANCF3243Data.cuh:434-440`).
 
 The global mass matrix is never assembled: M @ v is computed as a batched
-(E, S, S) x (E, S, 3) matmul plus a deterministic scatter-add (MXU-friendly),
+(E, S, S) x (E, S, 3) matmul plus a scatter-add,
 replacing the reference's CSR + atomicAdd assembly (`FEAT10Data.cu:206-278`)
 and CSR SpMV row loops (`SyncedNewton.cu:343-407`).
 """
@@ -29,8 +29,8 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
+from tlfea import struct
 from tlfea.ops.segment import coef_scatter_add, gather_coefs
 
 __all__ = [
@@ -195,7 +195,7 @@ def internal_force(
 
     f_a = sum_q P(q) grad_N_a(q) dV(q), scattered over connectivity.
     Reference: `compute_internal_force` (`FEAT10DataFunc.cuh:397-458`), with
-    the atomicAdd scatter replaced by a deterministic segment reduction.
+    the atomicAdd scatter replaced by an XLA scatter-add.
     """
     P = total_piola(x, v, elems, material)
     fe = jnp.einsum("eqij,eqaj,eq->eai", P, elems.grad_N, elems.dV)
@@ -216,9 +216,9 @@ def alm_residual_contributions(
     u: node-level DISPLACEMENTS (x - x_ref); see ElementBatch.x_ref for why
     the hot path is displacement-based.
 
-    i.e. M (v - v_prev)/h + f_int in one pass. Performance-critical: on TPU
-    the dominant cost of a residual evaluation is the *number* of
-    gather/scatter ops (each costs ~fixed time at FEM sizes), so this path
+    i.e. M (v - v_prev)/h + f_int in one pass. Performance-critical: the
+    gather/scatter passes over the node arrays dominate a residual
+    evaluation at FEM sizes, so this path
     packs [x | v | dv_dt] into a single (n_coef, 9) gather and merges the
     mass and internal-force contributions into a single scatter-add —
     ~2x faster per evaluation than composing `mass_matvec` +

@@ -17,8 +17,8 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
+from tlfea import struct
 from tlfea.ops.linalg import det3x3, inv_transpose3x3
 
 __all__ = ["MooneyRivlin"]

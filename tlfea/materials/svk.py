@@ -13,7 +13,8 @@ and the Newton-PCG block-Jacobi preconditioner (reference:
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+
+from tlfea import struct
 
 __all__ = ["SVK", "lame_from_E_nu"]
 

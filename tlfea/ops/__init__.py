@@ -1,4 +1,4 @@
-"""Low-level device ops: deterministic scatters, small batched linear algebra."""
+"""Low-level device ops: gathers/scatters, small batched linear algebra."""
 
 from tlfea.ops.segment import coef_scatter_add, gather_coefs
 from tlfea.ops.linalg import solve3x3, det3x3, inv_transpose3x3

@@ -1,4 +1,4 @@
-"""Small batched 3x3 linear algebra (VPU-friendly, closed-form).
+"""Small batched 3x3 linear algebra (closed-form, elementwise).
 
 Replaces the reference's per-thread Gaussian elimination
 (`lib_src/elements/FEAT10DataFunc.cuh:30-83`) with closed-form adjugate
@@ -57,7 +57,7 @@ def inv3x3(a: jnp.ndarray, eps: float = 0.0) -> jnp.ndarray:
 
     Precomputing the inverse turns a per-CG-iteration `solve3x3` (adjugate +
     determinant every iteration) into a single 3x3 matvec — the block-Jacobi
-    apply is on the CG critical path (PERF_NOTES).
+    apply is on the CG critical path.
     """
     det = det3x3(a)
     if eps:

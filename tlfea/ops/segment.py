@@ -1,10 +1,11 @@
-"""Deterministic gather/scatter between element-local and global coefficient
-arrays.
+"""Gather/scatter between element-local and global coefficient arrays.
 
 The reference scatters per-element force contributions with `atomicAdd`
 (`lib_src/elements/FEAT10DataFunc.cuh:397-458`), accepting floating-point
-nondeterminism. On TPU we use XLA scatter-add (`.at[].add`), which is
-deterministic and lowers to an efficient sorted segment reduction.
+nondeterminism. Here they are XLA scatter-adds (`.at[].add`). On the CPU
+backend these are deterministic; on the GPU XLA accumulates float
+scatter-adds with atomics too, so sums may differ in the last bits from run
+to run (docs/ARCHITECTURE.md §6).
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
 """SPMD scaling over a `jax.sharding.Mesh`.
 
 The reference is strictly single-GPU (SURVEY §2.10): its only parallelism is
-thread-level. On TPU we scale the element axis across chips: each device owns
+thread-level. Here the element axis scales across devices: each device owns
 a contiguous slab of elements (and their per-QP data); coefficient arrays
 (x, v, f) stay replicated. The only cross-device communication FEA needs is
 the reduction of per-element force/mass contributions at shared coefficients,
-which XLA's SPMD partitioner emits automatically as an ICI all-reduce from
+which XLA's SPMD partitioner emits automatically as an all-reduce from
 the scatter-add in `coef_scatter_add` — no hand-written collectives.
 
 For meshes large enough that replicated coefficient arrays dominate HBM,
@@ -97,7 +97,7 @@ def shard_system(system, mesh: Mesh):
         if system.constraints is not None
         else None
     )
-    # .replace preserves non-sharded fields (pallas handle, fused_grad, ...).
+    # .replace preserves the static fields (fused_grad, accum_dtype).
     return system.replace(elems=sharded_elems, material=material, constraints=constraints)
 
 

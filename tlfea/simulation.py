@@ -136,8 +136,8 @@ class Simulation:
         cons = self.system.constraints
         if cons is None or not hasattr(cons, "with_targets"):
             raise ValueError("system has no retargetable constraints")
-        # .replace keeps every other field (notably the static pallas kernel
-        # handle) — rebuilding System from scratch silently dropped it.
+        # .replace keeps every other field (the static options such as
+        # fused_grad / accum_dtype) — rebuilding System would drop them.
         self.system = self.system.replace(
             constraints=cons.with_targets(jnp.asarray(target))
         )

@@ -9,6 +9,6 @@ from tlfea.solvers.common import System, StepState, grad_L, suggest_rho  # noqa:
 from tlfea.solvers import newton, adamw, nesterov, vbd, coarse  # noqa: F401
 
 # The reference ships AdamW twice (cooperative + "Nocoop" host-loop variants,
-# `SyncedAdamWNocoop.cuh:21`); on TPU the split has no meaning — both are the
+# `SyncedAdamWNocoop.cuh:21`); here the split has no meaning — both are the
 # same jitted while_loop. Alias kept for API discoverability.
 adamw_nocoop = adamw

@@ -4,7 +4,7 @@ Runs AdamW on the velocity unknowns against the ALM gradient. The reference
 implements this twice — once as a persistent cooperative kernel with
 `grid.sync()` between phases (`lib_src/solvers/SyncedAdamW.cu:96-359`) and
 once as a host-orchestrated kernel stream for meshes exceeding the
-cooperative-launch occupancy cap (`SyncedAdamWNocoop.cu:266-497`). On TPU a
+cooperative-launch occupancy cap (`SyncedAdamWNocoop.cu:266-497`). Here a
 single jitted `lax.while_loop` is both: every phase fuses into one XLA
 executable with implicit grid-wide synchronization, and there is no scale
 cap, so the coop/nocoop fork disappears (SURVEY P5/P6).
@@ -17,8 +17,8 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
+from tlfea import struct
 from tlfea.solvers.common import StepState, System, grad_L, flat_norm, constraint_values
 
 __all__ = ["AdamWParams", "step", "make_step"]

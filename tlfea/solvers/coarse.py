@@ -15,7 +15,7 @@ solve. The coarse apply per CG iteration is one segment-sum, one small dense
 triangular solve pair, and one gather.
 
 The reference has no analog (its Newton uses a direct factorization); this
-is the TPU-native answer to the same robustness need.
+is the matrix-free answer to the same robustness need.
 """
 
 from __future__ import annotations
@@ -23,8 +23,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
+from tlfea import struct
 from tlfea.elements.assembly import ElementBatch, deformation_gradient
 
 __all__ = ["CoarseSetup", "build_aggregates", "coarse_operator", "make_two_level_precond"]
@@ -138,10 +138,9 @@ class CoarsePrecond:
     elasticity) — with the exact Galerkin operator A_c = R^T H(x0) R
     Cholesky-factorized up front. Per CG iteration the apply is two (or
     four) dense (na, n) matmuls + a small triangular solve: no gathers, no
-    scatters, no per-step assembly (PERF_NOTES: per-CG-iteration
-    gather/scatter ops are the TPU cost floor; the round-1 coarse apply
-    paid one scatter + one gather per iteration and re-assembled A_c every
-    inner solve).
+    scatters, no per-step assembly (the round-1 coarse apply paid one
+    scatter + one gather per iteration and re-assembled A_c every inner
+    solve).
 
     Freezing at x0 is the multigrid "frozen coarse operator" trade: the
     long-wavelength stiffness it must capture changes slowly with
@@ -172,13 +171,9 @@ class CoarsePrecond:
     # RCM level set that straddle cell boundaries; majority-voting them
     # cannot fix the raggedness).
     # All arrays in the seg > 0 apply are FLOAT one-hots — zero integer
-    # indexing (gather/scatter/compare) on the CG critical path: matmuls
-    # beat row-granular scatter/gather on TPU (PERF_NOTES cost model), and
-    # keeping the hot loop free of indexed ops removes a whole class of
-    # layout-dependent TPU miscompiles (a scan-rollout corruption first
-    # blamed on this apply was eventually traced to the ALM dual scatter —
-    # see newton._newton_inner's pin_terms — after every apply variant,
-    # integer or float, produced identical garbage).
+    # indexing (gather/scatter/compare) on the CG critical path: dense
+    # matmuls over one-hot tables in place of row-granular scatter/gather.
+    # Whether that still wins on the GPU is not measured (ROADMAP S6).
     seg: int = struct.field(pytree_node=False, default=0)
     Gc: jnp.ndarray = None  # (n_chunks, B, m, C) local one-hot, seg > 0 only
     Gmap: jnp.ndarray = None  # (na, n_chunks*B) f32 window row -> aggregate
@@ -187,9 +182,9 @@ class CoarsePrecond:
     # Matmul compute dtype for the apply ("bfloat16" | None). The coarse
     # correction is preconditioner-quality: bf16 tables halve the HBM
     # traffic of the apply (the coarse solve table alone is 150 MB f32 at
-    # max_agg=1024) AND escape the 3-pass f32 MXU emulation forced by
-    # jax_default_matmul_precision="float32" (one-hot tables are EXACT in
-    # bf16). CRITICAL: the coarse solve must stay SPD under rounding —
+    # max_agg=1024) AND run the matmuls at the bf16 rate instead of the
+    # full-f32 one that jax_default_matmul_precision="float32" forces
+    # (one-hot tables are EXACT in bf16). CRITICAL: the coarse solve must stay SPD under rounding —
     # entrywise bf16 rounding of the explicit inverse makes it INDEFINITE
     # for stiff problems (smallest eigenvalue ~1e-6 of largest; measured:
     # CG's rz>0 breakdown guard fires at iter 3 and Newton stalls on the
@@ -219,8 +214,7 @@ class CoarsePrecond:
     def restrict(self, r: jnp.ndarray) -> jnp.ndarray:
         if self.k_modes == 6:
             # Augmented channels: translations and moments restricted in ONE
-            # product/sum (each extra latency-bound op on the CG critical
-            # path costs ~0.1-0.3 ms on this TPU — PERF_NOTES).
+            # product/sum (one op fewer on the CG critical path).
             r = jnp.concatenate([r, jnp.cross(self.u0, r)], axis=1)  # (n, 6)
         elif self.k_modes == 12:
             # Affine: channel 3 + 3a + b restricts sum_i u0[i, a] r[i, b].
@@ -228,11 +222,8 @@ class CoarsePrecond:
             r = jnp.concatenate([r, outer], axis=1)  # (n, 12)
         r = self._mm(r)
         if self.seg:
-            # Lane-major layouts throughout: every materialized temp keeps
-            # C (=256) in the minor dim. The previous k-minor layouts
-            # (k=6 -> 128-lane padding) materialized 21x-padded temps
-            # (~110 MB/apply at 145k nodes) — measured as the bulk of the
-            # 0.7-1.3 ms in-loop apply vs its ~0.25 ms byte roofline.
+            # Every materialized temp keeps C (=256) in the minor dim: a
+            # minor dim of k=6 pads badly under tiled layouts.
             nc, B, m, C = self.Gc.shape
             k = r.shape[1]
             pad = nc * C * self.seg - r.shape[0]
@@ -264,10 +255,10 @@ class CoarsePrecond:
         return z6[:, :3] + jnp.einsum("na,nab->nb", self.u0, W9)
 
     def apply(self, r: jnp.ndarray) -> jnp.ndarray:
-        # Explicit-inverse matmul, not a triangular solve: cho_solve
-        # serializes on TPU (k sequential steps); a (k, k) matvec rides the
-        # MXU. The inverse is fine numerically here — A_c is regularized SPD
-        # and this is only a preconditioner.
+        # Explicit-inverse matmul, not a triangular solve: cho_solve is k
+        # sequential steps, a (k, k) matvec is one parallel product. The
+        # inverse is fine numerically here — A_c is regularized SPD and this
+        # is only a preconditioner.
         rhs = self.restrict(r)
         if self.W is not None:
             # Truncated spectral solve (see W): SPSD for any rounding.
@@ -337,8 +328,8 @@ def build_coarse_precond(
     aggregates any range touches (see CoarsePrecond.seg). Same CG counts
     as dense mode by construction; the dense (na, n) Agg matmul (~600 MB
     HBM per CG iteration at 145k nodes) disappears. A bandwidth-reducing
-    node order (RCM) keeps m small (the banded kernels already enforce
-    one); any order stays correct, just with larger m.
+    node order (RCM, `utils.reorder`) keeps m small; any order stays
+    correct, just with larger m.
 
     mm_dtype="bfloat16" stores the apply tables (Agg / Gc / Gmap / smask /
     Ainv) in bf16 and runs the apply matmuls in it — see
@@ -462,11 +453,10 @@ def build_coarse_precond(
         cols = jnp.tile(ca, (1, S)).reshape(-1)
         return Ac.at[rows, cols].add(Ac6.reshape(-1, k, k))
 
-    # The (chunk, S, S, k, k) assembly temps pad brutally under TPU (8,128)
-    # tiling (k=12 last dim pads 12 -> 128: 14.2x, 12.5 GB at chunk=16384 —
-    # compile-time OOM). Scale the chunk so the PADDED temp stays ~1 GB;
-    # assembly is one-time (frozen preconditioner), so more dispatches are
-    # fine.
+    # Scale the chunk so the (chunk, S, S, k, k) assembly temps stay near
+    # ~1 GB for every k (12.5 GB at chunk=16384, k=12 once ran out of
+    # memory at compile time); assembly is one-time (frozen
+    # preconditioner), so more dispatches are fine.
     chunk = max(512, chunk * 9 // (k * k))
     for s0 in range(0, E, chunk):
         s1 = min(s0 + chunk, E)

@@ -13,8 +13,8 @@ loop updates duals lambda += rho * c (Newton, `SyncedNewton.cu:470-481`) or
 lambda += rho * h * c (first-order solvers, `SyncedNesterov.cu:335-341`) and
 stops when ||c|| < outer_tol.
 
-On TPU the whole step — inner loop, convergence predicates, dual updates —
-lives inside one jitted function using `lax.while_loop`, so there is no
+The whole step — inner loop, convergence predicates, dual updates — lives
+inside one jitted function using `lax.while_loop`, so there is no
 device->host readback per iteration (the reference reads ||g|| back to the
 host every inner iteration: `SyncedNewton.cu:1063-1074`).
 """
@@ -26,9 +26,10 @@ from typing import Any
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
+from tlfea import struct
 from tlfea.elements.assembly import ElementBatch, internal_force, mass_matvec, mass_diag, node_ref
+from tlfea.ops.segment import gather_coefs
 
 __all__ = [
     "System", "StepState", "grad_L", "eval_constraints", "constraint_values",
@@ -47,12 +48,9 @@ class System:
     elems: ElementBatch
     material: Any
     constraints: Any = None
-    # Optional Pallas element-kernel handle (static; see
-    # tlfea.ops.pallas_fem.with_pallas). None -> XLA einsum path.
-    pallas: Any = struct.field(pytree_node=False, default=None)
     # Fuse mass+internal-force (+pin-constraint) contributions into a single
-    # gather/scatter pair per gradient (PERF_NOTES: op count of
-    # gathers/scatters dominates at FEM sizes). Static so it participates in
+    # gather/scatter pair per gradient (fewer gather/scatter passes over
+    # the node arrays). Static so it participates in
     # the jit cache key (round-1 review: env-var toggles inside traced code
     # silently shared compile caches).
     fused_grad: bool = struct.field(pytree_node=False, default=True)
@@ -60,8 +58,8 @@ class System:
     # At high stiffness the per-slot element forces are ~1e5x the net nodal
     # residual; f32 scatter cancellation then floors ||g|| at ~1% of the
     # load. Accumulating just the scatter (and the f_ext subtract) in f64
-    # removes that floor while element kernels stay f32 — the f32-TPU answer
-    # to the reference's all-f64 CUDA assembly.
+    # removes that floor while element kernels stay f32 — the mixed-precision
+    # answer to the reference's all-f64 CUDA assembly.
     accum_dtype: str | None = struct.field(pytree_node=False, default=None)
 
     @property
@@ -159,27 +157,6 @@ def grad_L(
         u_prev = x_prev - x_ref
     u = u_prev + dt * v
     cons = system.constraints
-    if system.pallas is not None:
-        from tlfea.ops.pallas_fem import residual_contributions
-
-        u = u.astype(v.dtype)  # Pallas kernels run in the working dtype
-        extra_idx = extra_vals = None
-        if isinstance(cons, FixedCoefs):
-            # Fold the pin-constraint force h (lam + rho c) into the element
-            # scatter: one scatter-add per gradient, total.
-            c = cons.eval_c_u(u, x_ref)
-            extra_idx = cons.idx
-            extra_vals = dt * (lam + rho * c)
-        g = residual_contributions(
-            u, v, (v - v_prev) / dt, elems, system.pallas.fn, system.pallas,
-            extra_idx=extra_idx, extra_vals=extra_vals,
-            accum_dtype=system.accum_dtype,
-        ) - f_ext
-        if cons is not None and not isinstance(cons, FixedCoefs):
-            c = cons.eval_c_u(u, x_ref)
-            g = g + dt * cons.apply_jt(lam + rho * c, elems.n_coef)
-        return g
-
     if system.fused_grad:
         from tlfea.elements.assembly import _element_contrib_values
         from tlfea.ops.segment import coef_scatter_add
@@ -221,7 +198,6 @@ def precond_blocks(
     rho,
     system: System,
     u_prev=None,
-    bdata=None,
 ) -> jnp.ndarray:
     """Block-Jacobi 3x3 preconditioner blocks of dg/dv -> (n_coef, 3, 3).
 
@@ -238,40 +214,15 @@ def precond_blocks(
     # Preconditioner quality is insensitive to the wide-u accuracy mode —
     # work in the solver dtype.
     u = (u_prev + dt * v).astype(v.dtype)
-    bnd = getattr(system.pallas, "banded", None) if system.pallas is not None else None
-    if bnd is not None and getattr(bnd, "blocks_fn", None) is not None:
-        # Banded assembly kernel: gather + SYM6 element blocks + scatter in
-        # one kernel. The XLA `.at[conn].add` below was device-traced at
-        # 21 ms per refresh at 100k elems — the largest single op in the
-        # production rollout profile (bdata: tables as jit arguments, see
-        # newton._banded_data).
-        from tlfea.ops.pallas_banded import blocks_banded
-
-        sym = dt * blocks_banded(u, bnd, bdata=bdata)
-        blocks = jnp.stack(
-            [
-                jnp.stack([sym[:, 0], sym[:, 1], sym[:, 2]], axis=-1),
-                jnp.stack([sym[:, 1], sym[:, 3], sym[:, 4]], axis=-1),
-                jnp.stack([sym[:, 2], sym[:, 4], sym[:, 5]], axis=-1),
-            ],
-            axis=-2,
-        )
-    elif system.pallas is not None and getattr(system.pallas, "precond_fn", None) is not None:
-        from tlfea.ops.pallas_fem import tangent_blocks
-
-        blocks = tangent_blocks(u, elems, system.pallas.precond_fn, system.pallas, dt)
-    else:
-        from tlfea.elements.assembly import gather_coefs
-
-        ue = gather_coefs(u, elems.conn)  # (E, S, 3)
-        Du = jnp.einsum("eai,eqaj->eqij", ue, elems.grad_N)
-        F = Du + jnp.eye(3, dtype=Du.dtype)  # (E, Q, 3, 3)
-        # (E, Q, S, 3, 3) diag tangent blocks, weighted by dt * dV.
-        Kb = system.material.tangent_diag_block(F[:, :, None, :, :], elems.grad_N)
-        Kb = Kb * (dt * elems.dV)[:, :, None, None, None]
-        Kb = Kb.sum(axis=1)  # (E, S, 3, 3)
-        blocks = jnp.zeros((elems.n_coef, 3, 3), dtype=v.dtype)
-        blocks = blocks.at[elems.conn.reshape(-1)].add(Kb.reshape(-1, 3, 3))
+    ue = gather_coefs(u, elems.conn)  # (E, S, 3)
+    Du = jnp.einsum("eai,eqaj->eqij", ue, elems.grad_N)
+    F = Du + jnp.eye(3, dtype=Du.dtype)  # (E, Q, 3, 3)
+    # (E, Q, S, 3, 3) diag tangent blocks, weighted by dt * dV.
+    Kb = system.material.tangent_diag_block(F[:, :, None, :, :], elems.grad_N)
+    Kb = Kb * (dt * elems.dV)[:, :, None, None, None]
+    Kb = Kb.sum(axis=1)  # (E, S, 3, 3)
+    blocks = jnp.zeros((elems.n_coef, 3, 3), dtype=v.dtype)
+    blocks = blocks.at[elems.conn.reshape(-1)].add(Kb.reshape(-1, 3, 3))
 
     # Kelvin-Voigt viscous tangent: f_vis is linear in v through
     # Fdot = sum_a v_a grad_N_a (no dt factor), and its diagonal block has
@@ -289,13 +240,7 @@ def precond_blocks(
         blocks = blocks * (1.0 + (eta_d + lam_d) / (dt * lam_mu))
 
     eye = jnp.eye(3, dtype=v.dtype)
-    if bnd is not None and getattr(bnd, "md", None) is not None:
-        # Host-assembled at banded build time — mass is constant element
-        # data, and the XLA scatter assembly below traced at 6.9 ms per
-        # refresh at 100k elems.
-        md = bnd.md.astype(v.dtype) / dt
-    else:
-        md = mass_diag(elems) / dt  # (n_coef,)
+    md = mass_diag(elems) / dt  # (n_coef,)
     blocks = blocks + md[:, None, None] * eye
 
     cons = system.constraints
@@ -337,7 +282,8 @@ def suggest_rho(elems: ElementBatch, material, dt: float) -> float:
     (lam += rho c per outer iteration), which couples unstably with
     barely-damped structural oscillation — |lam| and the kinetic energy
     then grow exponentially in ANY precision (measured at E=7e8 with the
-    round-1 default rho=1e7; see PERF_NOTES "Float32 convergence floor").
+    round-1 default rho=1e7; see docs/ARCHITECTURE.md "Float32 convergence
+    floor").
 
     Host-side helper (concrete numbers in, float out); call once at setup.
     """

@@ -16,8 +16,8 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
+from tlfea import struct
 from tlfea.solvers.common import StepState, System, grad_L, flat_norm, constraint_values
 
 __all__ = ["NesterovParams", "step", "make_step"]

@@ -9,11 +9,10 @@ system
 with g the exact ALM gradient and H_a the per-coefficient diagonal tangent
 block (reference: `lib_src/solvers/SyncedVBD.cu:162-377`).
 
-TPU mapping, round-2 design (SURVEY P7/P8): the round-1 port gathered each
-color's padded (element, qp) incidence lists (~6 gathers per color — the
-worst case for the measured fixed gather cost: 273 ms/sweep at 10.6k
-elems). On TPU the FUSED full-mesh residual (one gather + one scatter,
-Pallas element kernel) is cheaper than two incidence gathers, so instead:
+Round-2 design (SURVEY P7/P8): the round-1 port gathered each color's
+padded (element, qp) incidence lists (~6 gathers per color). The FUSED
+full-mesh residual (one gather + one scatter) measured cheaper than two
+incidence gathers, so instead:
 
 - the residual is refreshed as the full ALM gradient once per color GROUP
   (the reference's `color_group_size` staleness/throughput trade,
@@ -30,12 +29,11 @@ supports every constraint family the other solvers do (including general
 LinearConstraints, which the reference's VBD does not — it handles pins
 only, `SyncedVBD.cu:1089-1118`).
 
-POSITIONING (measured, PERF_NOTES "VBD datapoint"): on TPU this solver is a
-correctness/parity path, not a performance path — one sweep costs ~237 ms
-at 10.6k elems vs 15.5 ms for a full converged Newton-PCG step. The sweep
-is a serial chain of ~n_colors fixed-latency ops that per-vertex GPU
-parallelism hides and TPU's wide-vector model does not. Keep group_size
-small (default 4): staler group residuals diverge at omega=1.
+POSITIONING: a correctness/parity path until measured otherwise. Its sweep
+is a serial chain of ~n_colors small ops; whether the H100 runs that fast
+enough for a bench cell is open (ROADMAP R11, `benchmarks/vbd_converged.py`).
+Keep group_size small (default 4): staler group residuals diverge at
+omega=1.
 """
 
 from __future__ import annotations
@@ -43,8 +41,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
+from tlfea import struct
 from tlfea.ops.linalg import solve3x3
 from tlfea.solvers.common import (
     StepState, System, grad_L, precond_blocks, flat_norm, constraint_values,

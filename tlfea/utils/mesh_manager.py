@@ -35,10 +35,11 @@ class MeshInstance:
 class Scene:
     """Finalized scene arrays with a band-minimizing node relabeling applied.
 
-    The banded Pallas kernels (`tlfea.ops.pallas_banded`) require a small
-    node bandwidth; multi-mesh scenes assembled in load order (and TetGen's
-    natural numbering — the dragon item-drop mesh has bandwidth 26k) blow
-    the VMEM window. `MeshManager.scene()` snapshots the assembled scene
+    Multi-mesh scenes assembled in load order (and TetGen's natural
+    numbering — the dragon item-drop mesh has bandwidth 26k) scatter each
+    element's gathers and scatters across the node arrays; a small node
+    bandwidth keeps them local in memory (and keeps the range-mode coarse
+    apply's slot count small). `MeshManager.scene()` snapshots the assembled scene
     with `utils.reorder.best_order` applied consistently to every node-
     indexed array. Element ORDER is unchanged (only node labels), so
     per-instance element ranges and `elem_mesh_ids` stay valid.
@@ -48,9 +49,8 @@ class Scene:
     labeling; `to_old()` maps per-node rows back to assembly order when an
     export must match the original file numbering.
 
-    Reference parity: the reference needs no analog (CUDA atomics are
-    order-independent; `test_item_drop.cc:575-599` runs natural order) —
-    this is TPU-architecture plumbing.
+    Reference parity: the reference runs natural order
+    (`test_item_drop.cc:575-599`); relabeling changes no physics.
     """
 
     nodes: np.ndarray            # (n, 3) in scene (new) order
@@ -193,8 +193,7 @@ class MeshManager:
     # -- finalization ------------------------------------------------------
     def scene(self, reorder: bool = True) -> Scene:
         """Snapshot the assembled scene, optionally (default) relabeling
-        nodes with the band-minimizing order so the banded Pallas kernels
-        engage on arbitrary multi-mesh scenes (see `Scene`). Call AFTER all
+        nodes with the band-minimizing order (see `Scene`). Call AFTER all
         loads/transforms/pressure fields; derive fixed sets and loads from
         the returned arrays."""
         from tlfea.utils.reorder import apply_node_order, best_order

@@ -7,7 +7,7 @@ solver step and host `chrono` timers for collision sub-phases
 
 - `StepTimer` — named-phase accumulator with the same per-phase ms/step
   averages, plus percentiles;
-- `trace` — context manager around `jax.profiler` for real TPU traces
+- `trace` — context manager around `jax.profiler` for device traces
   (TensorBoard-compatible), which the reference has no equivalent of.
 """
 

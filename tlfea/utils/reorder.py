@@ -1,16 +1,16 @@
 """Bandwidth-reducing node renumbering (reverse Cuthill-McKee).
 
-The banded fused kernels (`tlfea.ops.pallas_banded`) window the node axis:
-their VMEM footprint and feasibility are set by the mesh's node bandwidth
-(max node-index span of any sorted element block). Generated meshes often
+Each element gathers its node rows and scatter-adds back into them; the
+mesh's node bandwidth (max node-index span of any element block) sets how
+far apart in memory those rows lie, and the range-mode coarse apply's slot
+count grows with it (`solvers.coarse`). Generated meshes often
 have terrible bandwidth for incidental reasons — `box_t10_mesh` numbers
 corner nodes grid-major but APPENDS all mid-edge nodes afterwards, so every
 element spans the two regions (~N/2 bandwidth). RCM renumbering restores
 the geometric band.
 
-Reference parity: the reference has no analog (CUDA scatter-atomics are
-order-independent); this is TPU-architecture plumbing, pure host-side
-NumPy.
+Reference parity: the reference has no analog; relabeling changes no
+physics. Pure host-side NumPy.
 
 Usage (before building elements):
 
@@ -121,9 +121,7 @@ def best_order(nodes: np.ndarray, conn: np.ndarray) -> np.ndarray:
     RCM is graph-only and can lose badly on meshes with a clear long axis:
     on the 101k-elem bench box its level sets bundle several geometric
     layers (band 3925 vs the ~1530-node slab optimum), while sorting along
-    the long axis gives band 1566 — which cuts the banded Pallas gather's
-    one-hot depth K from 44 to 25 and the scatter schedule from 456 to 388
-    items/block (measured). For compact or irregular shapes RCM usually
+    the long axis gives band 1566. For compact or irregular shapes RCM usually
     wins; picking by measured band keeps both regimes optimal. Host-only,
     O(n log n) per candidate.
     """
